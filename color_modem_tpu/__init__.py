@@ -1,6 +1,6 @@
-"""color_modem_tpu — TPU-native analog color-television modem framework.
+"""color_modem_tpu — an analog color-television modem framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the reference
+A from-scratch JAX/XLA rebuild of the capabilities of the reference
 library ``kFYatek/color_modem`` (see SURVEY.md; the reference mount was empty
 during the survey and build sessions, so parity is discharged against the
 frozen in-repo golden oracle in :mod:`color_modem_tpu.golden`, per SURVEY.md
@@ -18,7 +18,6 @@ Architecture (SURVEY.md §7.1):
 - ``frame/``      batched ``(frames, lines, samples)`` pipeline under ``jit``
 - ``parallel/``   device mesh builders + halo-exchange collectives
                   (``shard_map`` + ``ppermute`` over a ``lineblk`` ring)
-- ``kernels/``    Pallas TPU kernels for the hot paths, each with a pure-jnp twin
 - ``golden/``     frozen NumPy per-scanline oracle (the accuracy reference)
 - ``compat/``     reference-style per-line ``modulate``/``demodulate`` OO API
 """
@@ -39,7 +38,7 @@ from color_modem_tpu.standards import (  # noqa: F401
 
 
 def make_pipeline(standard: str, samples: int = 720, decoder: str = "notch",
-                  backend: str = "xla", raster: bool = False):
+                  raster: bool = False):
     """One-call convenience: ``(encode, decode, roundtrip)`` for a standard.
 
         import color_modem_tpu as cmt
@@ -52,33 +51,32 @@ def make_pipeline(standard: str, samples: int = 720, decoder: str = "notch",
     from color_modem_tpu.modem.plan import make_plan
 
     plan = make_plan(ALL_STANDARDS[standard](), samples)
-    return _mk(plan, decoder, backend, raster=raster)
+    return _mk(plan, decoder, raster=raster)
 
 
 def make_interlaced_pipeline(standard: str, samples: int = 720,
-                             decoder: str = "notch", backend: str = "xla"):
+                             decoder: str = "notch"):
     """Like :func:`make_pipeline`, transmitting 2:1 interlaced fields
     (frame.interlace): RGB frames <-> field-sequential composite."""
     from color_modem_tpu.frame.interlace import make_interlaced_pipeline as _mk
     from color_modem_tpu.modem.plan import make_plan
 
     plan = make_plan(ALL_STANDARDS[standard](), samples)
-    return _mk(plan, decoder, backend)
+    return _mk(plan, decoder)
 
 
-def make_svideo_pipeline(standard: str, samples: int = 720,
-                         backend: str = "xla"):
+def make_svideo_pipeline(standard: str, samples: int = 720):
     """Like :func:`make_pipeline` over separate Y/C planes (frame.svideo):
     no shared wire, hence no separation stage and no cross-color."""
     from color_modem_tpu.frame.svideo import make_svideo_pipeline as _mk
     from color_modem_tpu.modem.plan import make_plan
 
     plan = make_plan(ALL_STANDARDS[standard](), samples)
-    return _mk(plan, backend)
+    return _mk(plan)
 
 
 def make_transcoder(src: str, dst: str, samples: int = 720,
-                    decoder: str | None = None, backend: str = "xla"):
+                    decoder: str | None = None):
     """Standards converter by name (frame.transcode):
     ``conv = cmt.make_transcoder("ntsc", "pal"); pal = conv(ntsc_comp)``."""
     from color_modem_tpu.frame.transcode import make_transcoder as _mk
@@ -87,5 +85,5 @@ def make_transcoder(src: str, dst: str, samples: int = 720,
     return _mk(
         make_plan(ALL_STANDARDS[src](), samples),
         make_plan(ALL_STANDARDS[dst](), samples),
-        decoder, backend,
+        decoder,
     )

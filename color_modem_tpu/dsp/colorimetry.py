@@ -1,9 +1,9 @@
 """Colorimetry matrix application (SURVEY.md K11).
 
 RGB <-> (Y, C1, C2) conversions are 3x3 matmuls applied with the channel axis
-third-from-last: arrays are ``(..., 3, L, N)`` so the sample axis stays on
-the TPU lane dimension and the contraction is a tiny einsum XLA fuses into
-adjacent elementwise work.
+third-from-last: arrays are ``(..., 3, L, N)`` so the sample axis stays
+the contiguous minor axis and the contraction is a tiny einsum over the
+channel axis.
 """
 
 from __future__ import annotations
@@ -16,8 +16,9 @@ from jax import lax
 def apply_mat3(mat, x: jax.Array) -> jax.Array:
     """``y[..., d, l, n] = sum_c mat[d, c] * x[..., c, l, n]``."""
     m = jnp.asarray(mat, dtype=x.dtype)
-    # HIGHEST: the TPU default accumulates dots in bf16, which injects ~1e-3
-    # error into every pixel and caps golden parity at ~58 dB.
+    # HIGHEST: full float32.  A default-precision dot may run on a
+    # reduced-precision matrix unit (TF32 on the GPU, ~1e-3 relative),
+    # which would put that error into every pixel.
     return jnp.einsum("dc,...cln->...dln", m, x, precision=lax.Precision.HIGHEST)
 
 

@@ -1,8 +1,8 @@
 """Config-time FIR filter design — pure NumPy, runs once per pipeline build.
 
 The reference designs IIR filters at runtime and applies them with
-``scipy.signal.filtfilt`` per scanline (SURVEY.md C8, [MEM-M]).  A TPU-native
-design wants linear-convolution FIR taps designed **once** on the host
+``scipy.signal.filtfilt`` per scanline (SURVEY.md C8, [MEM-M]).  A batched
+accelerator design wants linear-convolution FIR taps designed **once** on the host
 (this module) and applied on device as a batched convolution
 (:mod:`color_modem_tpu.dsp.apply`) — capability K3 in SURVEY.md §2.2.
 

@@ -13,7 +13,7 @@ index**:
 ``cpl = fsc/fh`` is stored as an exact rational ``cpl_num/cpl_den``
 (standards/base.py), so ``frac(cpl*g)`` is computed with int32 modular
 arithmetic — exact for any 32-bit line index, where float32 would lose the
-phase after ~1e5 lines and float64 is unavailable on the TPU VPU.  The
+phase after ~1e5 lines and the device path computes in float32.  The
 within-line ramp is a host-precomputed float64->float32 constant.
 
 Because phi0 depends only on the absolute index, line blocks are phase-

@@ -94,7 +94,7 @@ def field_line_index(plan: ModemPlan, frame0, n_frames: int, n_rows: int):
 
 
 def make_interlaced_pipeline(
-    plan: ModemPlan, decoder: str = "notch", backend: str = "xla",
+    plan: ModemPlan, decoder: str = "notch",
     raster: bool = False,
 ):
     """Jitted interlaced closures: RGB frames <-> field-sequential composite.
@@ -128,10 +128,10 @@ def make_interlaced_pipeline(
             # parity-major regroup: axis -3 becomes "same-parity frames"
             cp = comp_fields.reshape(b2 // 2, 2, rows, n).transpose(1, 0, 2, 3)
             gp = g.reshape(b2 // 2, 2, rows).transpose(1, 0, 2)
-            out = decode_block(plan, cp, gp, decoder, backend)
+            out = decode_block(plan, cp, gp, decoder)
             out = out.transpose(1, 0, 2, 3, 4).reshape(b2, 3, rows, n)
         else:
-            out = decode_block(plan, comp_fields, g, decoder, backend)
+            out = decode_block(plan, comp_fields, g, decoder)
         return weave_fields(out)
 
     def _decode_fields(comp_fields, frame0):
@@ -146,7 +146,7 @@ def make_interlaced_pipeline(
     def encode(rgb, frame0=0):
         fields = split_fields(rgb)
         g = field_line_index(plan, frame0, rgb.shape[0], fields.shape[-2])
-        comp = encode_block(plan, fields, g, backend)
+        comp = encode_block(plan, fields, g)
         if rp is not None:
             comp = add_raster(plan, rp, comp, g)
         return comp
@@ -161,6 +161,6 @@ def make_interlaced_pipeline(
         # round trip is identical and cheaper without it (as in pipeline.py)
         fields = split_fields(rgb)
         g = field_line_index(plan, frame0, rgb.shape[0], fields.shape[-2])
-        return _decode_core(encode_block(plan, fields, g, backend), g)
+        return _decode_core(encode_block(plan, fields, g), g)
 
     return encode, decode, roundtrip

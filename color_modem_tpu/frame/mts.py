@@ -96,9 +96,8 @@ def mts_decode(plan: ModemPlan, a, row_samples: int | None = None):
     return s + d, s - d, pilot
 
 
-# --- public-entry jit (relay eager-complex limitation; utils/jitwrap) ---
-# mts_decode runs fir_same_fft (eager complex kernel multiply — see
-# frame/nicam.py note); mts_encode is real elementwise and stays plain.
+# --- public-entry jit (one compiled program per call; utils/jitwrap) ---
+# mts_decode is wrapped; mts_encode is real elementwise and stays plain.
 from color_modem_tpu.utils.jitwrap import plan_jit as _plan_jit
 
 mts_decode = _plan_jit(mts_decode, static=("row_samples",))

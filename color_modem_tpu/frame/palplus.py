@@ -13,11 +13,11 @@ library has no enhanced-PAL systems; SURVEY.md §2.1, mount empty §0.1).
 Signalled on air by the line-23 WSS word this framework already carries
 (:mod:`color_modem_tpu.frame.wss`, EN 300 294 "16:9 letterbox centre").
 
-TPU-native formulation — the whole system is four linear maps plus the
+Array formulation — the whole system is four linear maps plus the
 QAM machinery that already exists:
 
 * Vertical 2-band split: the letterbox picture is the anti-aliased
-  ``L -> 3L/4`` windowed-sinc resample (one MXU matmul per frame,
+  ``L -> 3L/4`` windowed-sinc resample (one matmul per frame,
   :func:`frame.transcode.resample_lines`); the helper band is the residual
   ``Y - up(down(Y))``, which by construction occupies exactly the top
   quarter of the vertical spectrum ([3/8, 1/2] cycles/line).
@@ -154,7 +154,6 @@ def encode_palplus(
     plan: ModemPlan,
     rgb: jax.Array,
     gline: jax.Array,
-    backend: str = "xla",
     helper_gain: float = 1.0,
 ) -> jax.Array:
     """(..., 3, L, N) full-height 16:9 RGB -> (..., L, N) letterbox
@@ -167,7 +166,7 @@ def encode_palplus(
 
     rgb_pic = clamp01(resample_lines(rgb, geo.l_pic))
     g_pic, g_bars = _split_g(geo, gline)
-    comp_pic = encode_block(plan, rgb_pic, g_pic, backend)
+    comp_pic = encode_block(plan, rgb_pic, g_pic)
 
     phi = carrier_phase(plan, g_bars)
     bars = jnp.clip(
@@ -186,7 +185,6 @@ def decode_palplus(
     comp: jax.Array,
     gline: jax.Array,
     decoder: str = "comb3",
-    backend: str = "xla",
     helper_gain: float = 1.0,
     use_helper: bool = True,
 ) -> jax.Array:
@@ -199,7 +197,7 @@ def decode_palplus(
     pic, bars = _split_rows(geo, comp)
     g_pic, g_bars = _split_g(geo, gline)
 
-    rgb_pic = decode_block(plan, pic, g_pic, decoder, backend)
+    rgb_pic = decode_block(plan, pic, g_pic, decoder)
     up = resample_lines(rgb_pic, geo.l_full)
     if not use_helper:
         return clamp01(up)
@@ -222,7 +220,6 @@ def decode_palplus(
 def make_palplus_pipeline(
     plan: ModemPlan,
     decoder: str = "comb3",
-    backend: str = "xla",
     helper_gain: float = 1.0,
     raster: bool = False,
 ):
@@ -249,7 +246,7 @@ def make_palplus_pipeline(
     def encode(rgb, frame0=0):
         b, _, l, _ = rgb.shape
         g = frame_line_index(plan, frame0, b, l)
-        comp = encode_palplus(plan, rgb, g, backend, helper_gain)
+        comp = encode_palplus(plan, rgb, g, helper_gain)
         if rp is not None:
             comp = add_raster(plan, rp, comp, g)
         return comp
@@ -261,16 +258,16 @@ def make_palplus_pipeline(
         b, l = comp.shape[0], comp.shape[-2]
         g = frame_line_index(plan, frame0, b, l)
         return decode_palplus(
-            plan, comp, g, decoder, backend, helper_gain, use_helper
+            plan, comp, g, decoder, helper_gain, use_helper
         )
 
     @partial(jax.jit, static_argnames=("use_helper",))
     def roundtrip(rgb, frame0=0, use_helper=True):
         b, _, l, _ = rgb.shape
         g = frame_line_index(plan, frame0, b, l)
-        comp = encode_palplus(plan, rgb, g, backend, helper_gain)
+        comp = encode_palplus(plan, rgb, g, helper_gain)
         return decode_palplus(
-            plan, comp, g, decoder, backend, helper_gain, use_helper
+            plan, comp, g, decoder, helper_gain, use_helper
         )
 
     return encode, decode, roundtrip
@@ -294,7 +291,6 @@ def encode_palplus_fields(
     plan: ModemPlan,
     rgb: jax.Array,
     frame0,
-    backend: str = "xla",
     helper_gain: float = 1.0,
 ) -> jax.Array:
     """(B, 3, L, N) full-height 16:9 RGB frames -> (2B, L/2, N)
@@ -339,7 +335,7 @@ def encode_palplus_fields(
     rgb_f = split_fields(rgb_full)                      # (2B, 3, L/2, N)
     hlp_f = split_fields(hlp_full)                      # (2B, L/2, N)
     g = field_line_index(plan, frame0, b, l // 2)
-    comp = encode_block(plan, rgb_f, g, backend)
+    comp = encode_block(plan, rgb_f, g)
     # the bar rows carry ONLY the helper DSB (the progressive layout,
     # encode_palplus): mask the encoded black rows out rather than trust
     # encode(black) == 0, then add the clipped helper (which is zero on
@@ -360,7 +356,6 @@ def decode_palplus_fields(
     comp_fields: jax.Array,
     frame0,
     decoder: str = "comb3",
-    backend: str = "xla",
     helper_gain: float = 1.0,
     use_helper: bool = True,
 ) -> jax.Array:
@@ -384,7 +379,7 @@ def decode_palplus_fields(
     # inside the picture instead of combing helper bars), weave fields
     pic_f = comp_fields[..., hb : hb + pr, :]
     rgb_pic = weave_fields(
-        decode_block(plan, pic_f, g[..., hb : hb + pr], decoder, backend)
+        decode_block(plan, pic_f, g[..., hb : hb + pr], decoder)
     )                                                   # (B, 3, 3L/4, N)
     up = resample_lines(rgb_pic, geo.l_full)
     if not use_helper:
@@ -416,7 +411,6 @@ def decode_palplus_fields(
 def make_interlaced_palplus_pipeline(
     plan: ModemPlan,
     decoder: str = "comb3",
-    backend: str = "xla",
     helper_gain: float = 1.0,
     raster: bool = False,
 ):
@@ -440,7 +434,7 @@ def make_interlaced_palplus_pipeline(
     @jax.jit
     def encode(rgb, frame0=0):
         comp = encode_palplus_fields(
-            plan, rgb, frame0, backend, helper_gain
+            plan, rgb, frame0, helper_gain
         )
         if rp is not None:
             g = field_line_index(
@@ -454,17 +448,17 @@ def make_interlaced_palplus_pipeline(
         if rp is not None:
             comp_fields = strip_raster(rp, comp_fields)
         return decode_palplus_fields(
-            plan, comp_fields, frame0, decoder, backend, helper_gain,
+            plan, comp_fields, frame0, decoder, helper_gain,
             use_helper,
         )
 
     @partial(jax.jit, static_argnames=("use_helper",))
     def roundtrip(rgb, frame0=0, use_helper=True):
         comp = encode_palplus_fields(
-            plan, rgb, frame0, backend, helper_gain
+            plan, rgb, frame0, helper_gain
         )
         return decode_palplus_fields(
-            plan, comp, frame0, decoder, backend, helper_gain, use_helper
+            plan, comp, frame0, decoder, helper_gain, use_helper
         )
 
     return encode, decode, roundtrip

@@ -41,20 +41,10 @@ def check_decoder(plan: ModemPlan, decoder: str) -> None:
 
 
 def encode_block(
-    plan: ModemPlan, rgb: jax.Array, gline: jax.Array, backend: str = "xla"
+    plan: ModemPlan, rgb: jax.Array, gline: jax.Array
 ) -> jax.Array:
-    """(..., 3, L, N) RGB in [0,1] + (..., L) absolute lines -> (..., L, N).
-
-    ``backend``: 'xla' composes the modem/ functions (each FIR an MXU
-    matmul); 'pallas' runs the fused VMEM kernels from kernels/ (identical
-    math, tested twins — SURVEY.md §2.3).
-    """
+    """(..., 3, L, N) RGB in [0,1] + (..., L) absolute lines -> (..., L, N)."""
     ycc = apply_mat3(plan.rgb_to_ycc, rgb.astype(jnp.float32))
-    if backend == "pallas":
-        from color_modem_tpu.kernels import qam as qam_k, secam as secam_k
-
-        enc = secam_k.encode if plan.cfg.is_fm else qam_k.encode
-        return enc(plan, ycc, gline)
     if plan.cfg.is_fm:
         return secam_mod.encode(plan, ycc, gline)
     return qam.encode(plan, ycc, gline)
@@ -65,7 +55,6 @@ def decode_block(
     comp: jax.Array,
     gline: jax.Array,
     decoder: str = "notch",
-    backend: str = "xla",
     phase_err: jax.Array | None = None,
     chroma_gain: jax.Array | None = None,
 ) -> jax.Array:
@@ -88,16 +77,10 @@ def decode_block(
     comp = comp.astype(jnp.float32)
     if plan.cfg.is_fm:
         pairing = "interp" if decoder == "interp" else "copy"
-        if backend == "pallas":
-            from color_modem_tpu.kernels import secam as secam_k
-
-            ycc = secam_k.decode(plan, comp, gline, pairing)
-        else:
-            ycc = secam_mod.decode(plan, comp, gline, pairing)
+        ycc = secam_mod.decode(plan, comp, gline, pairing)
         if decoder == "avg":
             # chroma-averaging wrapper on the assembled Dr/Db planes
-            # (standards/decoders.py FM_DECODERS note): a cheap
-            # elementwise pass outside the kernel, identical both backends
+            # (standards/decoders.py FM_DECODERS note)
             ycc = jnp.concatenate(
                 [
                     ycc[..., :1, :, :],
@@ -106,18 +89,8 @@ def decode_block(
                 axis=-3,
             )
     else:
-        if backend == "pallas" and decoder not in ("combA", "comb3dA"):
-            # combA's data-dependent blend lives outside the fused-kernel
-            # structure (stencil -> shared BPF); it runs on the XLA path
-            # regardless of backend (standards/decoders.py note)
-            from color_modem_tpu.kernels import qam as qam_k
-            from color_modem_tpu.separate.comb import stencil_signal
-
-            sep = stencil_signal(plan, comp, decoder)
-            luma, c1, c2 = qam_k.demodulate_separated(plan, sep, comp, gline)
-        else:
-            luma, chroma_band = separate(plan, comp, decoder)
-            c1, c2 = qam.demodulate_carrier(plan, chroma_band, gline)
+        luma, chroma_band = separate(plan, comp, decoder)
+        c1, c2 = qam.demodulate_carrier(plan, chroma_band, gline)
         p: QamParams = plan.cfg.chroma
         if phase_err is not None:
             d = phase_err[..., None].astype(jnp.float32)
@@ -146,10 +119,9 @@ def roundtrip_block(
     rgb: jax.Array,
     gline: jax.Array,
     decoder: str = "notch",
-    backend: str = "xla",
 ) -> jax.Array:
-    comp = encode_block(plan, rgb, gline, backend)
-    return decode_block(plan, comp, gline, decoder, backend)
+    comp = encode_block(plan, rgb, gline)
+    return decode_block(plan, comp, gline, decoder)
 
 
 def frame_line_index(plan: ModemPlan, frame0, n_frames: int, n_lines: int):
@@ -157,14 +129,13 @@ def frame_line_index(plan: ModemPlan, frame0, n_frames: int, n_lines: int):
     return global_line_index(frame0, n_frames, n_lines, plan.cfg.total_lines)
 
 
-def make_pipeline(plan: ModemPlan, decoder: str = "notch", backend: str = "xla",
+def make_pipeline(plan: ModemPlan, decoder: str = "notch",
                   raster: bool = False):
     """Jitted single-device closures over a fixed plan.
 
     Returns ``(encode, decode, roundtrip)``, each taking a ``(B, ...)`` batch
     and a scalar ``frame0`` (the index of the first frame, which drives the
     NTSC 4-field / PAL 8-field phase sequence across batches).
-    ``backend``: 'xla' or 'pallas' (fused VMEM kernels).
     ``raster``: emit/consume full rastered lines with sync + color burst in
     the blanking interval (SURVEY.md A.1 — optional, default off); the
     decoder strips the blanking before demodulation.
@@ -184,7 +155,7 @@ def make_pipeline(plan: ModemPlan, decoder: str = "notch", backend: str = "xla",
     def encode(rgb, frame0=0):
         b, _, l, _ = rgb.shape
         g = frame_line_index(plan, frame0, b, l)
-        comp = encode_block(plan, rgb, g, backend)
+        comp = encode_block(plan, rgb, g)
         if rp is not None:
             comp = add_raster(plan, rp, comp, g)
         return comp
@@ -195,7 +166,7 @@ def make_pipeline(plan: ModemPlan, decoder: str = "notch", backend: str = "xla",
         g = frame_line_index(plan, frame0, b, l)
         if rp is not None:
             comp = strip_raster(rp, comp)
-        return decode_block(plan, comp, g, decoder, backend)
+        return decode_block(plan, comp, g, decoder)
 
     @jax.jit
     def roundtrip(rgb, frame0=0):
@@ -203,6 +174,6 @@ def make_pipeline(plan: ModemPlan, decoder: str = "notch", backend: str = "xla",
         # so the round trip is identical and cheaper without it
         b, _, l, _ = rgb.shape
         g = frame_line_index(plan, frame0, b, l)
-        return roundtrip_block(plan, rgb, g, decoder, backend)
+        return roundtrip_block(plan, rgb, g, decoder)
 
     return encode, decode, roundtrip

@@ -157,7 +157,7 @@ def strip_raster(rp: RasterPlan, rastered: jax.Array) -> jax.Array:
 
 def decode_burst_locked(plan: ModemPlan, rp: RasterPlan, rastered: jax.Array,
                         gline: jax.Array, decoder: str = "notch",
-                        backend: str = "xla", acc: bool = False,
+                        acc: bool = False,
                         color_kill: float = 0.0) -> jax.Array:
     """Decode a rastered block using the burst-measured subcarrier phase.
 
@@ -197,7 +197,7 @@ def decode_burst_locked(plan: ModemPlan, rp: RasterPlan, rastered: jax.Array,
         base = cg if cg is not None else jnp.ones_like(amp)
         cg = jnp.where(amp < jnp.float32(color_kill) * ref, 0.0, base)
     comp = strip_raster(rp, rastered)
-    return decode_block(plan, comp, gline, decoder, backend,
+    return decode_block(plan, comp, gline, decoder,
                         phase_err=delta, chroma_gain=cg)
 
 
@@ -239,8 +239,7 @@ def identify_vswitch(plan: ModemPlan, rp: RasterPlan, rastered: jax.Array,
 
 
 def decode_identified(plan: ModemPlan, rp: RasterPlan, rastered: jax.Array,
-                      gline: jax.Array, decoder: str = "notch",
-                      backend: str = "xla"):
+                      gline: jax.Array, decoder: str = "notch"):
     """Burst-locked decode WITHOUT trusting the line counter's parity.
 
     The receiver loop of a real PAL set: the ident (from the swinging
@@ -250,7 +249,7 @@ def decode_identified(plan: ModemPlan, rp: RasterPlan, rastered: jax.Array,
     """
     slip = identify_vswitch(plan, rp, rastered, gline)
     g = gline + slip[..., None]
-    return decode_burst_locked(plan, rp, rastered, g, decoder, backend), slip
+    return decode_burst_locked(plan, rp, rastered, g, decoder), slip
 
 
 def measure_burst_phase(plan: ModemPlan, rp: RasterPlan, rastered: jax.Array,

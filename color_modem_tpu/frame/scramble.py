@@ -16,7 +16,7 @@ non-subscribers while a keyed set-top box put every sample back:
 Reference parity: beyond-reference (the upstream library has no
 conditional-access simulation; SURVEY.md §2.1, mount empty §0.1).
 
-TPU-native formulation: every system is ONE ``take_along_axis`` gather per
+Array formulation: every system is ONE ``take_along_axis`` gather per
 block (rotation and delay gather along samples, shuffle gathers along
 lines), with the key schedule a closed-form integer hash of
 ``(key, absolute line index)`` — the same philosophy as the NCO phase law

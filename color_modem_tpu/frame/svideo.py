@@ -30,7 +30,7 @@ from color_modem_tpu.modem.plan import ModemPlan
 
 
 def encode_yc(
-    plan: ModemPlan, rgb: jax.Array, gline: jax.Array, backend: str = "xla"
+    plan: ModemPlan, rgb: jax.Array, gline: jax.Array
 ) -> jax.Array:
     """(..., 3, L, N) RGB -> (..., 2, L, N) stacked (Y, C) planes.
 
@@ -39,7 +39,7 @@ def encode_yc(
     """
     ycc = apply_mat3(plan.rgb_to_ycc, rgb.astype(jnp.float32))
     y = ycc[..., 0, :, :]
-    comp = encode_block(plan, rgb, gline, backend)
+    comp = encode_block(plan, rgb, gline)
     return jnp.stack([y, comp - y], axis=-3)
 
 
@@ -62,14 +62,14 @@ def decode_yc(
     return clamp01(apply_mat3(plan.ycc_to_rgb, ycc))
 
 
-def make_svideo_pipeline(plan: ModemPlan, backend: str = "xla"):
+def make_svideo_pipeline(plan: ModemPlan):
     """Jitted (encode, decode, roundtrip) closures, mirroring
     frame.pipeline.make_pipeline but over (B, 2, L, N) Y/C signals."""
 
     @jax.jit
     def encode(rgb, frame0=0):
         g = frame_line_index(plan, frame0, rgb.shape[0], rgb.shape[-2])
-        return encode_yc(plan, rgb, g, backend)
+        return encode_yc(plan, rgb, g)
 
     @jax.jit
     def decode(yc, frame0=0):
@@ -79,6 +79,6 @@ def make_svideo_pipeline(plan: ModemPlan, backend: str = "xla"):
     @jax.jit
     def roundtrip(rgb, frame0=0):
         g = frame_line_index(plan, frame0, rgb.shape[0], rgb.shape[-2])
-        return decode_yc(plan, encode_yc(plan, rgb, g, backend), g)
+        return decode_yc(plan, encode_yc(plan, rgb, g), g)
 
     return encode, decode, roundtrip

@@ -22,7 +22,7 @@ top field (an even pattern position — the five even positions have five
 distinct residues mod 5, so the duplicate signature pins the phase
 uniquely).
 
-TPU notes: telecine and reassembly are pure gathers; the cadence metric
+Array notes: telecine and reassembly are pure gathers; the cadence metric
 is a batched reduction.  Phase detection itself is a HOST decision (one
 scalar readback, like the video runner's resume decisions) because the
 trim offset changes array shapes — jit the per-chunk compute, decide the

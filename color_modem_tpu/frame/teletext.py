@@ -22,7 +22,7 @@ So full-rate, full-size packets are supported at ``width >= 1440`` and
 :func:`color_modem_tpu.frame.vbi.teletext_spec`'s half-rate short lines
 for demos).
 
-TPU shape: every packet of a page encodes/decodes in ONE batched call —
+Array shape: every packet of a page encodes/decodes in ONE batched call —
 rows stack on the line axis of the (..., L, N) composite exactly like
 ordinary video lines, the correlating decoder recovers each row's clock
 in parallel, and Hamming correction is a 256-entry ``jnp.take`` LUT, not

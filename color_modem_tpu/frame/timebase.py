@@ -26,8 +26,7 @@ Shifts are applied as spectral phase ramps (circular; the wrapped samples
 land in the far end of the blanking interval, away from sync, burst, and
 active video for the few-sample shifts that are physical here).  The
 spectra come from real-valued DFT matmuls (``dsp.rdft``), not ``jnp.fft``
-— see that module for why (non-smooth lengths are backend roulette here;
-matmuls are MXU-native).  No complex dtype appears anywhere in this module.
+— see that module for why (short non-pow2 lengths).  No complex dtype appears anywhere in this module.
 """
 
 from __future__ import annotations

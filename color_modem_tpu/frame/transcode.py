@@ -57,25 +57,23 @@ def transcode_block(
     g_src: jax.Array,
     g_dst: jax.Array,
     decoder: str | None = None,
-    backend: str = "xla",
 ) -> jax.Array:
     """(..., L_src, N_src) source composite -> (..., L_dst, N_dst)."""
     rgb = decode_block(
-        plan_src, comp, g_src, decoder or best_decoder(plan_src), backend
+        plan_src, comp, g_src, decoder or best_decoder(plan_src)
     )
     rgb = resample_lines(rgb, g_dst.shape[-1])  # g_dst defines the raster
     if plan_dst.n_samples != plan_src.n_samples:
         rgb = resample_width(rgb, plan_dst.n_samples)
     # the resample's sinc ringing overshoots [0, 1]; the encoder's input
     # contract (and any real converter's video clamp) is [0, 1]
-    return encode_block(plan_dst, clamp01(rgb), g_dst, backend)
+    return encode_block(plan_dst, clamp01(rgb), g_dst)
 
 
 def make_transcoder(
     plan_src: ModemPlan,
     plan_dst: ModemPlan,
     decoder: str | None = None,
-    backend: str = "xla",
 ):
     """Jitted ``(comp_src (B, L, N), frame0) -> comp_dst`` closure.
 
@@ -93,7 +91,7 @@ def make_transcoder(
         )
         g_dst = frame_line_index(plan_dst, frame0, b, l_dst)
         return transcode_block(
-            plan_src, plan_dst, comp, g_src, g_dst, decoder, backend
+            plan_src, plan_dst, comp, g_src, g_dst, decoder
         )
 
     return transcode
@@ -103,7 +101,6 @@ def make_interlaced_transcoder(
     plan_src: ModemPlan,
     plan_dst: ModemPlan,
     decoder: str | None = None,
-    backend: str = "xla",
 ):
     """Field-sequential converter: (2B, L/2, N) source fields ->
     (2B, L'/2, N) destination fields.
@@ -117,9 +114,9 @@ def make_interlaced_transcoder(
     from color_modem_tpu.frame.interlace import make_interlaced_pipeline
 
     _, dec_src, _ = make_interlaced_pipeline(
-        plan_src, decoder or best_decoder(plan_src), backend
+        plan_src, decoder or best_decoder(plan_src)
     )
-    enc_dst, _, _ = make_interlaced_pipeline(plan_dst, "notch", backend)
+    enc_dst, _, _ = make_interlaced_pipeline(plan_dst, "notch")
 
     @jax.jit
     def transcode(comp_fields, frame0=0):

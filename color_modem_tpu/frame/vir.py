@@ -16,7 +16,7 @@ invisible at blanking but fully expressed on the 70-IRE pedestal, so the
 VIR measurement captures what the burst physically cannot (the classic
 "burst is not where the picture lives" argument for VIR).
 
-TPU-native formulation: the reference line is a closed-form waveform on
+Array formulation: the reference line is a closed-form waveform on
 the NCO phase law (one array expression), and the measurement is two
 masked projections of the chroma segment onto sin/cos of the same phase —
 no PLL, no state; corrections feed :func:`frame.pipeline.decode_block`'s
@@ -125,7 +125,6 @@ def decode_vir_corrected(
     gline: jax.Array,
     n_vir: int,
     decoder: str = "notch",
-    backend: str = "xla",
 ) -> jax.Array:
     """Decode a composite whose FIRST ``n_vir`` rows are VIR lines.
 
@@ -143,7 +142,6 @@ def decode_vir_corrected(
         comp[..., n_vir:, :],
         g_pic,
         decoder,
-        backend,
         phase_err=rep["phase_err"][..., None] * ones,
         chroma_gain=rep["chroma_gain_corr"][..., None] * ones,
     )

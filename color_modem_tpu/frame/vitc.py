@@ -23,7 +23,7 @@ where memory is uncertain:
 
 Unlike the run-in services in frame/vbi.py, VITC has NO clock run-in —
 receivers time off the nine embedded sync pairs.  The decoder here does
-the same, TPU-style: it slices the line at a GRID of candidate clock
+the same, as one array program: it slices the line at a GRID of candidate clock
 phases in one batched gather, scores each phase by sync-pair matches, and
 argmax-picks — the same all-offsets-at-once pattern as teletext's frame
 alignment search (frame/teletext.py).

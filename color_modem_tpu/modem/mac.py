@@ -17,12 +17,12 @@ data burst in the blanking interval (105 duobinary symbols at 10.125 Mbaud
 = half the D-MAC rate, which is what lets D2-MAC fit cable channels), then
 clamp, chroma, luma.
 
-TPU-first formulation, consistent with modem/qam.py:
+Array formulation, consistent with modem/qam.py:
 
 * everything is a pure function of a whole ``(..., L, N)`` block plus the
   absolute line index array ``gline`` — no per-line Python loop, no state;
 * time compression/expansion is the windowed-sinc resampling MATRIX from
-  dsp/resample (one MXU matmul per segment, anti-aliasing built in);
+  dsp/resample (one matmul per segment, anti-aliasing built in);
 * duobinary precoding p_k = b_0 xor ... xor b_k is a CLOSED FORM —
   ``cumsum(bits) mod 2`` — not a sequential scan;
 * the burst is shaped by a half-band interpolator whose even-offset taps

@@ -7,8 +7,7 @@ each line's complex demod output z = c1 + j*c2; for a chroma line this is the
 (A_ref, 0) — so dividing the chroma measurement by the reference measurement
 (times A_ref) cancels differential gain and phase.
 
-Implemented with real-pair arithmetic (no complex dtype) so the same code
-drops into a Pallas kernel.  The neighbor shift is the usual 1-line stencil.
+Implemented with real-pair arithmetic (no complex dtype).  The neighbor shift is the usual 1-line stencil.
 Exact upstream constants are unavailable (empty reference mount, SURVEY.md
 §0); this follows the A.5 description.
 """

@@ -39,8 +39,7 @@ SECAM_MIX_LPF = 1.4e6
 #: (estimated from the edge samples) plus, on the left, the rest carrier
 #: whose phase is known by modem convention (the per-line FM integral
 #: starts at phase 2*pi*f0*0.5/fs at sample 0).  Swept 16-256: plateau
-#: from ~32, 48 is robust across fixtures; 720+2*48=816 keeps the Pallas
-#: lane padding at 896 (vs 768, +36% kernel FLOPs on SECAM only).
+#: from ~32, 48 is robust across fixtures.
 SECAM_MARGIN = 48
 #: samples averaged for the blanking luma pedestal estimate (~8.5 carrier
 #: cycles: the carrier averages out of the mean)

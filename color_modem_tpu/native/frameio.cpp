@@ -3,7 +3,7 @@
 // The reference does all image handling through PIL + NumPy in Python
 // (SURVEY.md C7); at production video rates the uint8 HWC <-> float32 CHW
 // conversion and PPM (de)serialization on the host become the feeder
-// bottleneck for the TPU (one 1080-line frame is ~6 MB that must be
+// bottleneck for the accelerator (one 1080-line frame is ~6 MB that must be
 // de-interleaved, normalized and laid out before device transfer).  This
 // translation unit implements those loops in C++ with OpenMP-free manual
 // threading (std::thread) so the Python layer stays a thin ctypes shim

@@ -3,10 +3,10 @@
 The mesh has two named axes:
 
 * ``"frame"``  — data parallelism over the frame batch: embarrassingly
-  parallel, no steady-state collectives; place it on the DCN/host axis.
+  parallel, no steady-state collectives.
 * ``"lineblk"`` — sequence/context parallelism over scanline blocks: each
   device owns a contiguous block of lines and exchanges 1-4 line halos with
-  ring neighbors over ICI (parallel/halo.py).  This is the framework's
+  its ring neighbors (parallel/halo.py).  This is the framework's
   long-context story: the closed-form NCO (dsp/nco.py) means *no* sequential
   state crosses block boundaries — only stencil halos do.
 
@@ -19,7 +19,7 @@ sample-sharded layouts per stage) is consciously NOT used — the decision
 SURVEY.md §2.4 asks to be documented: every FIR in the pipeline runs along
 the sample axis and every stencil along the line axis, so the line-sharded
 layout is optimal for *all* stages simultaneously; an ``all_to_all`` would
-add two full-array ICI transposes per stage to save halos that are only 1-4
+add two full-array transposes per stage to save halos that are only 1-4
 lines deep.  The ring ``ppermute`` halo exchange (halo.py) moves ~1000x
 fewer bytes at the target geometries.
 """
@@ -45,9 +45,10 @@ def make_mesh(
 
     With no arguments: all devices go to the frame axis (pure DP, the
     no-collective default).  Give ``lineblk`` to carve out context
-    parallelism.  On a multi-host slice call :func:`init_distributed` first;
-    the frame axis should map to the DCN (host) dimension, which
-    ``create_device_mesh`` arranges when frame = n_hosts * k.
+    parallelism.  The cards of one host reach each other all to all at one
+    rate, so the factoring follows the algorithm alone: the frame axis
+    costs no steady-state traffic, the line axis a few halo lines per
+    stage.  Across processes call :func:`init_distributed` first.
     """
     devices = list(jax.devices()) if devices is None else list(devices)
     n = len(devices)
@@ -85,7 +86,8 @@ def init_distributed(coordinator: str | None = None, **kw) -> None:
     """Multi-host bring-up: ``jax.distributed.initialize`` passthrough.
 
     Guarded so single-process runs (and the CI fake-device mesh) never touch
-    it; on a pod slice each host calls this before :func:`make_mesh`
+    it; in a multi-process run each process calls this before
+    :func:`make_mesh`
     (SURVEY.md §4.3 'Multi-host smoke').
     """
     # NOTE: do not probe jax.process_count() here — it initializes the XLA

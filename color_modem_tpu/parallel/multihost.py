@@ -13,8 +13,8 @@ output and returns it next to the single-process unsharded reference so the
 caller can assert equivalence — bit-identical on the QAM paths, the same
 invariant tests/test_sharding.py enforces in-process.
 
-On a real pod slice the same worker body runs unchanged (one process per
-host, the TPU backend supplying local devices instead of
+On several real hosts the same worker body runs unchanged (one process
+per host, the accelerator backend supplying local devices instead of
 ``xla_force_host_platform_device_count``); only the spawning differs.
 
 Worker entry: ``python -m color_modem_tpu.parallel.multihost --process-id I
@@ -172,7 +172,7 @@ def worker_main(process_id: int, num_processes: int, port: int,
     from color_modem_tpu.standards import ALL_STANDARDS
     from color_modem_tpu.utils.metrics import psnr_jnp
 
-    # frame axis spans the processes (the DCN/host axis, mesh.py docstring);
+    # frame axis spans the processes (no steady-state traffic, mesh.py);
     # line blocks stay within each process
     mesh = make_mesh(num_processes, devices_per_proc)
     plan = make_plan(ALL_STANDARDS[SMOKE_STANDARD](), 720)

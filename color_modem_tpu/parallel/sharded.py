@@ -111,15 +111,13 @@ def _block_gline_frames_ext(plan: ModemPlan, frame0, b_blk: int, l_blk: int,
 
 
 def make_sharded_pipeline(
-    plan: ModemPlan, mesh: Mesh, decoder: str = "notch", backend: str = "xla"
+    plan: ModemPlan, mesh: Mesh, decoder: str = "notch"
 ):
     """Returns jitted (encode, decode, roundtrip) over the mesh.
 
     encode: (B, 3, L, N) -> (B, L, N); decode: (B, L, N) -> (B, 3, L, N);
     B must divide the frame axis, L the lineblk axis (use
-    parallel.mesh.pad_to_multiple when it doesn't).  ``backend`` selects the
-    per-device compute path ('xla' or 'pallas' fused kernels) — the sharding
-    and halo logic is identical either way.
+    parallel.mesh.pad_to_multiple when it doesn't).
     """
     check_decoder(plan, decoder)
     h = required_halo(plan, decoder)
@@ -130,7 +128,7 @@ def make_sharded_pipeline(
     def _encode_blk(rgb_blk, frame0):
         b_blk, _, l_blk, _ = rgb_blk.shape
         g = _block_gline(plan, frame0, b_blk, l_blk)
-        return encode_block(plan, rgb_blk, g, backend)
+        return encode_block(plan, rgb_blk, g)
 
     def _decode_blk(comp_blk, frame0):
         b_blk, l_blk, _ = comp_blk.shape
@@ -149,31 +147,26 @@ def make_sharded_pipeline(
             if decoder == "comb3dA":
                 cext = halo_extend(cext, h, LINE_AXIS)
                 gext = halo_extend_lines(gext, h, LINE_AXIS)
-            rgb = decode_block(plan, cext, gext, decoder, backend)
+            rgb = decode_block(plan, cext, gext, decoder)
             rgb = rgb[pt : pt + b_blk]
             return crop_halo(rgb, h) if decoder == "comb3dA" else rgb
         edge = halo_edge_rule(plan, decoder)
         cext = halo_extend(comp_blk, h, LINE_AXIS, edge)
         gext = halo_extend_lines(g, h, LINE_AXIS, edge)
-        rgb = decode_block(plan, cext, gext, decoder, backend)
+        rgb = decode_block(plan, cext, gext, decoder)
         return crop_halo(rgb, h)
 
-    # check_vma=False: pallas_call out_shapes carry no varying-mesh-axes
-    # annotation, which the static check requires; both outputs are fully
-    # sharded over (frame, lineblk) so nothing needs replication analysis
     enc_sm = jax.shard_map(
         _encode_blk,
         mesh=mesh,
         in_specs=(rgb_spec, scalar),
         out_specs=comp_spec,
-        check_vma=False,
     )
     dec_sm = jax.shard_map(
         _decode_blk,
         mesh=mesh,
         in_specs=(comp_spec, scalar),
         out_specs=rgb_spec,
-        check_vma=False,
     )
 
     @jax.jit
@@ -232,7 +225,7 @@ def _field_gline_frames_ext(plan: ModemPlan, frame0, b_blk: int,
 
 
 def make_sharded_interlaced_pipeline(
-    plan: ModemPlan, mesh: Mesh, decoder: str = "notch", backend: str = "xla"
+    plan: ModemPlan, mesh: Mesh, decoder: str = "notch"
 ):
     """Sharded 2:1 interlaced pipeline (frame.interlace over the mesh).
 
@@ -266,7 +259,7 @@ def make_sharded_interlaced_pipeline(
         b_blk, _, l_blk, _ = rgb_blk.shape
         fields = split_fields(rgb_blk)  # (2b, 3, l_blk/2, N)
         g = _field_gline(plan, frame0, b_blk, l_blk // 2)
-        return encode_block(plan, fields, g, backend)
+        return encode_block(plan, fields, g)
 
     def _decode_blk(comp_blk, frame0):
         b2, rows_blk, n = comp_blk.shape
@@ -281,7 +274,7 @@ def make_sharded_interlaced_pipeline(
             if decoder == "comb3dA":
                 cext = halo_extend(cext, h, LINE_AXIS)
                 gext = halo_extend_lines(gext, h, LINE_AXIS)
-            out = decode_block(plan, cext, gext, decoder, backend)
+            out = decode_block(plan, cext, gext, decoder)
             out = out[:, pt : pt + b_blk]  # (2, b, 3, rows', n)
             if decoder == "comb3dA":
                 out = crop_halo(out, h)
@@ -291,16 +284,16 @@ def make_sharded_interlaced_pipeline(
         edge = halo_edge_rule(plan, decoder)
         cext = halo_extend(comp_blk, h, LINE_AXIS, edge)
         gext = halo_extend_lines(g, h, LINE_AXIS, edge)
-        out = crop_halo(decode_block(plan, cext, gext, decoder, backend), h)
+        out = crop_halo(decode_block(plan, cext, gext, decoder), h)
         return weave_fields(out)
 
     enc_sm = jax.shard_map(
         _encode_blk, mesh=mesh, in_specs=(rgb_spec, scalar),
-        out_specs=comp_spec, check_vma=False,
+        out_specs=comp_spec,
     )
     dec_sm = jax.shard_map(
         _decode_blk, mesh=mesh, in_specs=(comp_spec, scalar),
-        out_specs=rgb_spec, check_vma=False,
+        out_specs=rgb_spec,
     )
 
     @jax.jit
@@ -359,11 +352,11 @@ def make_sharded_mac_pipeline(plan, mesh: Mesh):
 
     enc_sm = jax.shard_map(
         _encode_blk, mesh=mesh, in_specs=(rgb_spec, scalar),
-        out_specs=sig_spec, check_vma=False,
+        out_specs=sig_spec,
     )
     dec_sm = jax.shard_map(
         _decode_blk, mesh=mesh, in_specs=(sig_spec, scalar),
-        out_specs=rgb_spec, check_vma=False,
+        out_specs=rgb_spec,
     )
 
     @jax.jit
@@ -384,7 +377,7 @@ def make_sharded_mac_pipeline(plan, mesh: Mesh):
 
 def make_sharded_palplus_pipeline(
     plan: ModemPlan, mesh: Mesh, decoder: str = "comb3",
-    backend: str = "xla", helper_gain: float = 1.0,
+    helper_gain: float = 1.0,
 ):
     """Jitted (encode, decode, roundtrip) for PALplus over the mesh —
     **data-parallel over frames only**.
@@ -425,21 +418,21 @@ def make_sharded_palplus_pipeline(
 
     def _encode_blk(rgb_blk, frame0):
         g = _gline(frame0, rgb_blk.shape[0], rgb_blk.shape[-2])
-        return encode_palplus(plan, rgb_blk, g, backend, helper_gain)
+        return encode_palplus(plan, rgb_blk, g, helper_gain)
 
     def _decode_blk(comp_blk, frame0):
         g = _gline(frame0, comp_blk.shape[0], comp_blk.shape[-2])
         return decode_palplus(
-            plan, comp_blk, g, decoder, backend, helper_gain
+            plan, comp_blk, g, decoder, helper_gain
         )
 
     enc_sm = jax.shard_map(
         _encode_blk, mesh=mesh, in_specs=(rgb_spec, scalar),
-        out_specs=comp_spec, check_vma=False,
+        out_specs=comp_spec,
     )
     dec_sm = jax.shard_map(
         _decode_blk, mesh=mesh, in_specs=(comp_spec, scalar),
-        out_specs=rgb_spec, check_vma=False,
+        out_specs=rgb_spec,
     )
 
     @jax.jit
@@ -461,8 +454,7 @@ def make_sharded_palplus_pipeline(
 # --- sharded transmission hop (RF / satellite) ------------------------------
 
 
-def make_sharded_hop_pipeline(plan, mesh: Mesh, hop, decoder: str = "notch",
-                              backend: str = "xla"):
+def make_sharded_hop_pipeline(plan, mesh: Mesh, hop, decoder: str = "notch"):
     """encode -> frame-local transmission hop -> decode over the mesh.
 
     The RF/satellite hops (frame/rf.py, frame/satellite.py) consume each
@@ -472,7 +464,7 @@ def make_sharded_hop_pipeline(plan, mesh: Mesh, hop, decoder: str = "notch",
     processes whole frames, none idles, and the spec change at the stage
     boundary makes XLA insert the line-axis all-gather before the hop and
     the re-partition after (the honest price of a frame-global channel
-    stage: ~2 MB per frame each way, ICI on a real slice).  When the batch
+    stage: ~2 MB per frame each way).  When the batch
     does not divide the device count, the hop falls back to FRAME-axis
     sharding (line-group devices then replicate the hop compute).  The
     composite encode/decode stages keep their full (frame, lineblk)
@@ -489,7 +481,7 @@ def make_sharded_hop_pipeline(plan, mesh: Mesh, hop, decoder: str = "notch",
     """
     import math
 
-    enc, dec, _ = make_sharded_pipeline(plan, mesh, decoder, backend)
+    enc, dec, _ = make_sharded_pipeline(plan, mesh, decoder)
     scalar = P()
     n_line = int(mesh.devices.shape[1])
     total = int(math.prod(mesh.devices.shape))
@@ -506,7 +498,7 @@ def make_sharded_hop_pipeline(plan, mesh: Mesh, hop, decoder: str = "notch",
                  None, None)
         return jax.shard_map(
             _hop_blk, mesh=mesh, in_specs=(spec, scalar),
-            out_specs=spec, check_vma=False,
+            out_specs=spec,
         )
 
     hop_flat, hop_frame = _mk_hop(True), _mk_hop(False)
@@ -524,8 +516,7 @@ def make_sharded_hop_pipeline(plan, mesh: Mesh, hop, decoder: str = "notch",
 
 
 def make_sharded_hop_audio_pipeline(plan, mesh: Mesh, hop,
-                                    decoder: str = "notch",
-                                    backend: str = "xla"):
+                                    decoder: str = "notch"):
     """:func:`make_sharded_hop_pipeline` for FRAME-LOCAL hops that carry an
     audio stream alongside the video — the satellite link with its FM
     subcarrier ladder (frame/satellite.py: per-frame circular FM, so each
@@ -541,7 +532,7 @@ def make_sharded_hop_audio_pipeline(plan, mesh: Mesh, hop,
     """
     import math
 
-    enc, dec, _ = make_sharded_pipeline(plan, mesh, decoder, backend)
+    enc, dec, _ = make_sharded_pipeline(plan, mesh, decoder)
     scalar = P()
     n_line = int(mesh.devices.shape[1])
     total = int(math.prod(mesh.devices.shape))
@@ -558,7 +549,7 @@ def make_sharded_hop_audio_pipeline(plan, mesh: Mesh, hop,
         cspec, aspec = P(ax, None, None), P(ax, None, None)
         return jax.shard_map(
             _hop_blk, mesh=mesh, in_specs=(cspec, aspec, scalar),
-            out_specs=(cspec, aspec), check_vma=False,
+            out_specs=(cspec, aspec),
         )
 
     hop_flat, hop_frame = _mk_hop(True), _mk_hop(False)
@@ -578,8 +569,7 @@ def make_sharded_hop_audio_pipeline(plan, mesh: Mesh, hop,
 
 
 def make_sharded_rf_sound_pipeline(plan, mesh: Mesh, rfp,
-                                   decoder: str = "notch",
-                                   backend: str = "xla"):
+                                   decoder: str = "notch"):
     """encode -> RF hop CARRYING THE JOINED-STREAM FM SOUND -> decode, over
     the mesh: the one subsystem family whose state crosses the batch.
 
@@ -634,7 +624,7 @@ def make_sharded_rf_sound_pipeline(plan, mesh: Mesh, rfp,
         sound_on_rf,
     )
 
-    enc, dec, _ = make_sharded_pipeline(plan, mesh, decoder, backend)
+    enc, dec, _ = make_sharded_pipeline(plan, mesh, decoder)
     scalar = P()
     n_line = int(mesh.devices.shape[1])
     total = int(math.prod(mesh.devices.shape))
@@ -678,7 +668,7 @@ def make_sharded_rf_sound_pipeline(plan, mesh: Mesh, rfp,
     spec2 = P(axes, None)
     hop_sm = jax.shard_map(
         _hop_blk, mesh=mesh, in_specs=(spec3, spec2, scalar),
-        out_specs=(spec3, spec2), check_vma=False,
+        out_specs=(spec3, spec2),
     )
 
     @jax.jit

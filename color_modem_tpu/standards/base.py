@@ -15,7 +15,7 @@ Design notes
   subcarrier cycles per line, ``cpl = cpl_num / cpl_den`` (SURVEY.md K1).
   This lets the NCO compute the line-start phase with exact int32 modular
   arithmetic for arbitrarily large global line indices — float32 would lose
-  the phase after ~1e5 lines, and float64 is unavailable on the TPU VPU.
+  the phase after ~1e5 lines, and the device path computes in float32.
 * Colorimetry matrices are stored as nested tuples; accessors return NumPy.
 """
 

@@ -4,8 +4,6 @@ Pure functional JAX has no data races; the analogs of sanitizers here are:
 
 * ``jax_debug_nans`` — enabled globally in tests/conftest.py: any NaN/Inf
   produced by a pipeline fails the test at the producing op.
-* Pallas ``interpret=True`` — the kernel "memory sanitizer"
-  (kernels/common.should_interpret routes all non-TPU runs through it).
 * :func:`checked` below — checkify-instrumented execution for dev runs:
   wraps a jittable function so float errors (NaN/Inf) raise host-side
   exceptions with source locations instead of propagating silently.

@@ -55,3 +55,21 @@ def test_asymmetric_taps(data):
     for method in ("matmul", "conv", "fft"):
         got = np.asarray(fir_same(jnp.asarray(x), taps, method))
         assert np.abs(got - ref).max() < 2e-5, method
+
+
+@pytest.mark.parametrize("method", ["matmul", "conv"])
+def test_fir_held_matches_numpy(method, data):
+    """Held-edge FIR (the SECAM baseband filters) against np.convolve on
+    the edge-padded line in float64; same 2e-5 bound as the zero-edge
+    paths (float32 products, 129 taps)."""
+    from color_modem_tpu.dsp.apply import fir_same_held
+
+    x, taps, _ = data
+    h = (len(taps) - 1) // 2
+    ref = np.stack([
+        np.convolve(np.pad(x[i].astype(np.float64), h, mode="edge"),
+                    taps, "same")[h:-h]
+        for i in range(len(x))
+    ])
+    got = np.asarray(fir_same_held(jnp.asarray(x), taps, method))
+    assert np.abs(got - ref).max() < 2e-5

@@ -4,8 +4,8 @@ code path).
 
 Two real OS processes, each with 4 virtual CPU devices, join through a
 localhost coordinator and run the sharded flagship round trip over the
-global (2, 4) (frame x lineblk) mesh — frame axis across processes (the
-DCN/host axis), line blocks within.  Cross-process halo exchange rides the
+global (2, 4) (frame x lineblk) mesh — frame axis across processes, line
+blocks within.  Cross-process halo exchange rides the
 Gloo CPU collectives; a global PSNR reduction proves cross-process psum.
 
 Equivalence bar: multi-process output is BIT-identical to the in-process

@@ -14,6 +14,17 @@ def test_flat_field_is_exact():
         np.testing.assert_allclose(y, 0.37, atol=1e-5)
 
 
+def test_matches_float64_matrix_product():
+    """The device resample equals the host matrix applied in float64 to
+    1e-5 (float32 products over 17-tap rows, unit-scale input)."""
+    rng = np.random.default_rng(3)
+    x = rng.random((8, 720)).astype(np.float32)
+    for n in (1440, 704):
+        ref = x.astype(np.float64) @ resample_matrix(720, n).astype(np.float64)
+        got = np.asarray(resample_width(jnp.asarray(x), n))
+        assert np.abs(got - ref).max() < 1e-5, n
+
+
 def test_band_limited_round_trip():
     """720 -> 1440 -> 720 on a band-limited signal is near-lossless."""
     n = 720

@@ -4,10 +4,10 @@ Two kinds of bound per (standard, decoder):
 
 * **parity**: the JAX pipeline must match the frozen float64 golden oracle to
   >= 60 dB PSNR — loose enough for any float32 backend (measured: ~150 dB on
-  CPU and TPU), tight enough to catch any algorithmic divergence.
+  CPU), tight enough to catch any algorithmic divergence.
 * **round-trip**: decoded-vs-input PSNR must meet the recorded threshold
   (measured values minus ~1.5 dB margin; recorded 2026-08-16 on the 64x720
-  smooth_scene fixture).  These are the BASELINE.md accuracy numbers.
+  smooth_scene fixture).  chip_smoke.py holds the card to the same bounds.
 """
 
 import numpy as np

@@ -228,17 +228,6 @@ def test_sharded_interlaced_equals_unsharded(name, decoder, batch):
     assert ran >= 3, "mesh skip logic left too few factorings"
 
 
-def test_sharded_pallas_backend_matches(batch):
-    """Pallas kernels inside shard_map (interpret mode on CPU)."""
-    plan = get_plan("ntsc")
-    mesh = make_mesh(2, 4)
-    _, _, rt_x = make_sharded_pipeline(plan, mesh, "comb3", "xla")
-    _, _, rt_p = make_sharded_pipeline(plan, mesh, "comb3", "pallas")
-    np.testing.assert_allclose(
-        np.asarray(rt_p(batch)), np.asarray(rt_x(batch)), atol=5e-4
-    )
-
-
 def test_sharded_rf_hop_equals_unsharded(batch):
     """Transmission hop sharding (round 3): the RF hop is frame-local on
     the JOINED row stream, so it shards DP over frames only; the spec
